@@ -13,11 +13,16 @@ files end to end — genome load + feature/index build + mapping + SAM output:
              this machine and cached in .bench_cache/baseline_v2.json.
   ours       linear_tpu's production pipeline: feeder + forked worker pool
              running the native per-read engine, with the seed stage
-             auto-dispatched between the TPU kernel and the native engine
-             by measured rate (outputs identical either way). XLA compiles
-             are excluded by a small warm-up file (one-time per machine via
-             the persistent compilation cache); everything else, index
-             build included, is in the timed region.
+             dispatched between the device kernel (--device accel) and the
+             native engine by measured rate (outputs identical either way).
+             XLA compiles are excluded by a small warm-up file (persistent
+             compilation cache); everything else, index build included, is
+             in the timed region.
+
+The JSON line names the device the run used (JAX platform, device kind,
+device count, and nvidia-smi's name and power limit where there is one).
+A device failure fails the run; so does a JAX CPU backend unless
+JAX_PLATFORMS=cpu asks for it.
 
 Output parity between the two sides is enforced by tests/difftest.py, so
 this measures identical work.
@@ -43,24 +48,28 @@ REF_FALLBACK_READS_PER_S = 1955.62  # reference README human run (BASELINE.md)
 
 
 def mutate(seq, rng, sub=0.04, ins=0.03, dele=0.03):
-    r = rng.random(len(seq) * 2)
-    out = []
-    i = 0
-    k = 0
-    while i < len(seq):
-        x = r[k % len(r)]
-        k += 1
-        if x < sub:
-            out.append((int(seq[i]) + 1) % 4)
-            i += 1
-        elif x < sub + ins:
-            out.append(int(r[(k + 7) % len(r)] * 4) & 3)
-        elif x < sub + ins + dele:
-            i += 1
-        else:
-            out.append(int(seq[i]))
-            i += 1
-    return np.array(out, dtype=np.uint8)
+    """CLR-like errors: step k draws r[k]; a substitution or a match copies
+    seq[i] (changed or not) and advances i, an insertion emits a random
+    base without advancing, a deletion advances without emitting. The walk
+    is evaluated for all steps at once."""
+    n = len(seq)
+    r = rng.random(n * 2)
+    reps = 1
+    while True:  # the draws wrap around r when the walk outlasts them
+        x = np.tile(r, reps)
+        adv = ~((x >= sub) & (x < sub + ins))
+        i = np.cumsum(adv) - adv  # seq index before each step
+        k_end = int(np.searchsorted(i, n))
+        if k_end < len(x) or n == 0:
+            break
+        reps += 1
+    x, i = x[:k_end], i[:k_end]
+    k = np.arange(k_end)
+    s = seq[np.minimum(i, max(n - 1, 0))].astype(np.int64)
+    ins_base = (r[(k + 8) % len(r)] * 4).astype(np.int64) & 3
+    val = np.where(x < sub, (s + 1) % 4, np.where(x < sub + ins, ins_base, s))
+    keep = ~((x >= sub + ins) & (x < sub + ins + dele))
+    return val[keep].astype(np.uint8)
 
 
 def make_data():
@@ -127,6 +136,18 @@ def measure_baseline(g_fa: str, r_fa: str) -> float:
     return rps
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit as nvidia-smi reports them, or ""
+    where there is no nvidia-smi."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+    return r.stdout.strip()
+
+
 def main():
     g_fa, r_fa, w_fa = make_data()
     baseline = measure_baseline(g_fa, r_fa)
@@ -135,6 +156,7 @@ def main():
     from linear_tpu.map.mapper import Mapper, MapperConfig
     from linear_tpu.parallel.pipeline import PipelineMapper
     from linear_tpu.utils import seqio
+    from linear_tpu.utils.jaxcfg import accel_device
 
     # one-time native toolchain build (g++ of lt_engine/lt_seqio), excluded
     # from the timed region exactly like the XLA compile cache: both are
@@ -145,77 +167,57 @@ def main():
     NE.engine_lib()
     _load_native("lt_seqio")
 
-    try:
-        import jax
-
-        jax.devices()
-        dev0 = "tpu"
-    except Exception:
-        dev0 = "host"
+    # both runs' pipelines (prepare = features + DIndex build, then the
+    # fork of the worker pool) are built before the first JAX call
     t0 = time.time()
-    mapper = Mapper([g_fa], MapperConfig(), device=dev0)
-    # prepares (features + DIndex build) then forks workers; still before
-    # any device work (children must never inherit a TPU client)
+    mapper = Mapper([g_fa], MapperConfig(), device="accel")
     pipe = PipelineMapper(mapper)
     t_prep = time.time() - t0
+    # best of 2 (mirrors the baseline's best-of-2): a fresh prep + map pass
+    # — same work end to end, guards both sides against transient host noise
+    t0 = time.time()
+    mapper2 = Mapper([g_fa], MapperConfig(), device="accel")
+    pipe2 = PipelineMapper(mapper2)
+    t_prep2 = time.time() - t0
 
-    # warm-up: compile the device kernels (one-time per machine, persistent
-    # XLA cache) and run a separate small file through the pipeline
-    if mapper.device == "tpu":
-        try:
-            mapper.warmup()
-        except Exception as e:
-            print(f"device warmup failed, host mode: {e}", file=sys.stderr)
-            mapper.device = "host"
+    import jax
 
-    # device auto-calibration (production dispatch decision): measure the
+    dev = accel_device()
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices()), "nvidia_smi": nvidia_smi()}
+
+    # warm-up: compile the device kernels (persistent XLA cache) and run a
+    # separate small file through the pipeline
+    mapper.warmup()
+
+    # device calibration (production dispatch decision): measure the
     # ACTUAL pipeline warm on the warm file with the device seed feeder on
-    # and off, and keep the faster mode. Synthetic per-stage models
-    # consistently mis-rank the modes on small hosts (pool scaling is not
-    # n_workers-linear once the feeder's tunnel transfers compete for
-    # cores), so the dispatch runs the real thing. Outputs are identical
-    # either way; the dispatch is framework runtime behavior. The runs
-    # double as pipeline warm-up (untimed, like the XLA compile cache).
+    # and off, and keep the faster mode. Outputs are identical either way;
+    # the runs double as pipeline warm-up (untimed, like the XLA compile
+    # cache).
     if mapper.use_native():
         wblock = next(seqio.read_blocks(w_fa))
         nw = len(wblock.seqs)
         ne = mapper.native_engine()
-        # device-path warm pass: only when the device survived warmup()
-        # (on a host with broken/absent jax this would crash before the
-        # calibration try/except, defeating the degrade-to-host fallback)
-        if mapper.device == "tpu":
-            try:
-                seeds = mapper._device_seed_block(wblock)
-            except Exception as e:
-                print(f"device seed warm failed, host mode: {e}", file=sys.stderr)
-                mapper.device = "host"
-                seeds = [None] * nw
-        else:
-            seeds = [None] * nw
+        seeds = mapper._device_seed_block(wblock)
         tc = time.time()
         for r, rid, s in zip(wblock.seqs, wblock.ids, seeds):
             s = np.asarray(s, dtype=np.uint64) if s is not None else None
             ne.map_read(r, rid, seeds=s, do_output=False)
         stages["host_seeded_reads_per_s_per_core"] = round(
             nw / (time.time() - tc), 1)
-        # don't resurrect a downgraded device: calibrate host-only then
-        rates = {"tpu": 0.0}
-        legs = ("tpu", "host") if mapper.device == "tpu" else ("host",)
-        for dev in legs:
-            mapper.device = dev
-            try:
-                for _ in pipe.run(w_fa, collect_cords=False):  # warm
-                    pass
-                tc = time.time()
-                n = 0
-                for br in pipe.run(w_fa, collect_cords=False):
-                    n += br.n
-                rates[dev] = n / (time.time() - tc)
-            except Exception as e:  # device unusable: calibrate host-only
-                print(f"calibration[{dev}] failed: {e}", file=sys.stderr)
-                rates[dev] = 0.0
-        mapper.device = "tpu" if rates["tpu"] > rates["host"] else "host"
-        stages["pipe_tpu_reads_per_s"] = round(rates["tpu"], 1)
+        rates = {}
+        for leg in ("accel", "host"):
+            mapper.device = leg
+            for _ in pipe.run(w_fa, collect_cords=False):  # warm
+                pass
+            tc = time.time()
+            n = 0
+            for br in pipe.run(w_fa, collect_cords=False):
+                n += br.n
+            rates[leg] = n / (time.time() - tc)
+        mapper.device = "accel" if rates["accel"] > rates["host"] else "host"
+        stages["pipe_accel_reads_per_s"] = round(rates["accel"], 1)
         stages["pipe_host_reads_per_s"] = round(rates["host"], 1)
         stages["n_workers"] = pipe.n_workers
         stages["device_dispatch"] = mapper.device
@@ -223,7 +225,7 @@ def main():
         for _ in pipe.run(w_fa):
             pass
 
-    sam_out = os.path.join(CACHE, "tpu_bench.sam")
+    sam_out = os.path.join(CACHE, "bench.sam")
 
     def timed_run(mapper, pipe):
         t1 = time.time()
@@ -238,12 +240,7 @@ def main():
     n, t_map = timed_run(mapper, pipe)
     pipe.close()
 
-    # best of 2 (mirrors the baseline's best-of-2): a fresh prep + map pass
-    # — same work end to end, guards both sides against transient host noise
-    t0 = time.time()
-    mapper2 = Mapper([g_fa], MapperConfig(), device=mapper.device)
-    pipe2 = PipelineMapper(mapper2)
-    t_prep2 = time.time() - t0
+    mapper2.device = mapper.device
     for _ in pipe2.run(w_fa, collect_cords=False):
         pass
     n2, t_map2 = timed_run(mapper2, pipe2)
@@ -264,6 +261,7 @@ def main():
         "value": round(rps, 2),
         "unit": "reads/s",
         "vs_baseline": round(rps / baseline, 4),
+        "device": device,
         "stages": stages,
     }))
 

@@ -1,13 +1,13 @@
-"""linear_tpu — a TPU-native, alignment-free long-read mapper / SV-signal filter.
+"""linear_tpu — an alignment-free long-read mapper / SV-signal filter.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the reference
+A from-scratch JAX/XLA re-design with the capabilities of the reference
 `linear` mapper (see /root/reference): approximate long-read mapping via a
 sampled open-syncmer-like minimizer index, dense 2-mer feature-window scoring,
 sparse anchor chaining, SV-gap resolution, and SAM/BAM*/APF emission.
 
-Architecture (TPU-first, not a port):
+Architecture (batched device kernels + a native host engine):
   - `linear_tpu.ops`      device kernels: hashing, features, chaining, extension
-  - `linear_tpu.index`    k-mer index build/query (counting-sort tables in HBM)
+  - `linear_tpu.index`    k-mer index build/query (counting-sort tables)
   - `linear_tpu.map`      the mapping engine (batched device pipeline + exact
                           scalar host oracle used as the correctness reference)
   - `linear_tpu.out`      cords -> CIGAR/SAM/APF emission (host)

@@ -15,7 +15,7 @@ from typing import List
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="linear_tpu",
-        description="linear_tpu - TPU-native alignment-free long-read mapper / SV filter",
+        description="linear_tpu - alignment-free long-read mapper / SV filter",
     )
     sub = p.add_subparsers(dest="submodule")
     f = sub.add_parser("filter", help="detect SV signals in long reads; outputs SAM/APF")
@@ -47,8 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--load-index", default="",
                    help="load a previously saved index instead of building "
                         "(must match -i/-t and the genome files)")
-    f.add_argument("--device", choices=["host", "tpu"], default="host",
-                   help="host oracle or TPU device pipeline")
+    f.add_argument("--device", choices=["host", "accel"], default="host",
+                   help="host engine only, or device seeding on the JAX "
+                        "accelerator (refuses a CPU backend unless "
+                        "JAX_PLATFORMS=cpu)")
     return p
 
 
@@ -96,12 +98,6 @@ def run_filter(args) -> int:
         feature_t=args.feature_type,
         aln_flag=args.align,
     )
-    if args.device == "tpu":
-        # multi-host: jax.distributed from JAX_COORDINATOR_ADDRESS /
-        # JAX_NUM_PROCESSES / JAX_PROCESS_ID (no-op when unset)
-        from .parallel.mesh import init_distributed
-
-        init_distributed()
     t0 = time.time()
     mapper = Mapper(genome_paths, cfg, device=args.device)
     if len(mapper.genomes) >= 1024:
@@ -143,6 +139,19 @@ def run_filter(args) -> int:
         pipeline = PipelineMapper(
             mapper, n_workers=max(1, min(args.thread, (os.cpu_count() or 1) + 1)),
             csize_workers=max(1, args.thread))
+    dev = None
+    if args.device == "accel":
+        # the first JAX call of the process: after the pool's fork
+        from .utils.jaxcfg import accel_device
+
+        try:
+            dev = accel_device()
+        except RuntimeError as e:
+            print(f"E[d01]: {e}", file=sys.stderr)
+            if pipeline is not None:
+                pipeline.close()
+            return 1
+        print(f"--Device  {dev.platform} {dev.device_kind}", file=sys.stderr)
 
     from .out import bam as BAM
     from .out import bamlink as BL
@@ -238,6 +247,10 @@ def run_filter(args) -> int:
         print("Result files: " + " ".join(outs), file=sys.stderr)
     if pipeline is not None:
         pipeline.close()
+        if dev is not None:
+            print(f"--Device  {dev.platform} seeded {pipeline.seeded} of "
+                  f"{pipeline.fetched} reads ({pipeline.seeds_used} shipped "
+                  "with device seeds)", file=sys.stderr)
     print(f"Time in sum[s] {time.time() - t0:.2f}", file=sys.stderr)
     return 0
 

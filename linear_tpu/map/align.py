@@ -7,7 +7,7 @@ src/align_bands.cpp:267-285), head/tail clipping (:603-730) and overlap
 stitching (merge_align_, :731-1111). The reference CLI never reaches
 this code (-a is commented out of its parser, src/args_parser.cpp:214),
 so there is no reference output to be bit-identical to; this module is a
-TPU-first re-design validated by the base-level CIGAR replay audit
+re-design validated by the base-level CIGAR replay audit
 (tests/cigar_audit.py) — the same oracle the reference's own
 check_cigar (src/test_units.cpp:14-164) implements.
 
@@ -15,10 +15,8 @@ Design:
   - colinear adjacent same-strand cords merge into ONE band region
     (mergeCordsBands' LineSegment/isColinear test) — fewer, longer
     windows cut total DP area;
-  - each region runs a banded semi-global DP. The batch SCORE pass is
-    the Pallas wavefront kernel (ops.align_pallas.banded_align_scores)
-    on device; the traceback runs here with a vectorized banded DP
-    (decayed-prefix-max row recurrence, same one the kernel uses);
+  - each region runs a banded semi-global DP on the host, vectorized per
+    row (decayed-prefix-max row recurrence), with traceback;
   - consecutive regions of a record stitch by trimming the next
     region's alignment back to the previous end (merge_align_'s
     overlap reconciliation, simplified to prefix trimming) and
@@ -37,16 +35,101 @@ from ..out.bamlink import (BAM_FLAG_RVCMP, BAM_FLAG_SUPPL, BamLinkRecord,
                            Cigar, if_create_new)
 from ..utils.cordscalar import cid, cx, cy, is_end, strand
 
-from ..ops.align_pallas import S_GAP, S_MATCH, S_MISMATCH
+# scheme of the reference's banded globalAlignment (match +3, mismatch -2,
+# gap open == extend == -1, i.e. linear gaps; src/align_interface.cpp:178-189)
+S_MATCH = 3
+S_MISMATCH = -2
+S_GAP = -1
 
 NEG = -(1 << 30)
+
+
+def banded_align_oracle(q: np.ndarray, r: np.ndarray, W: int = 128) -> int:
+    """Reference score: dense semi-global banded DP (free end gaps in both
+    sequences), one cell at a time."""
+    n, m = len(q), len(r)
+    if n == 0 or m == 0:
+        return 0
+    H = np.full((n + 1, m + 1), NEG, dtype=np.int64)
+    H[0, : m + 1] = 0
+    H[: n + 1, 0] = 0
+    for i in range(1, n + 1):
+        lo = max(1, i - W)
+        hi = min(m, i + W - 1)
+        for j in range(lo, hi + 1):
+            s = S_MATCH if q[i - 1] == r[j - 1] else S_MISMATCH
+            H[i, j] = max(H[i - 1, j - 1] + s, H[i - 1, j] + S_GAP,
+                          H[i, j - 1] + S_GAP)
+    return int(max(H[n, : m + 1].max(), H[: n + 1, m].max()))
+
+
+def banded_align_cigar(q: np.ndarray, r: np.ndarray, W: int = 128):
+    """Reference of banded_align_cigar_fast: full banded DP with a serial
+    in-row gap chain, then traceback. Returns (score, cigar, q_span,
+    r_span) with cigar in SAM =/X/I/D ops ('I' consumes query); end gaps
+    are NOT emitted (free-end overlap semantics)."""
+    n, m = len(q), len(r)
+    if n == 0 or m == 0:
+        return 0, "", (0, 0), (0, 0)
+    H = np.full((n + 1, m + 1), NEG, dtype=np.int64)
+    H[0, : m + 1] = 0
+    H[: n + 1, 0] = 0
+    for i in range(1, n + 1):
+        lo = max(1, i - W)
+        hi = min(m, i + W - 1)
+        if lo > hi:
+            continue
+        js = np.arange(lo, hi + 1)
+        sub = np.where(q[i - 1] == r[lo - 1: hi], S_MATCH, S_MISMATCH)
+        diag = H[i - 1, lo - 1: hi] + sub
+        up = H[i - 1, lo: hi + 1] + S_GAP
+        cand = np.maximum(diag, up)
+        # serial left dependency
+        row = H[i]
+        prev = row[lo - 1]
+        for k, j in enumerate(js):
+            v = cand[k]
+            if prev + S_GAP > v:
+                v = prev + S_GAP
+            row[j] = v
+            prev = v
+    # best end cell over last row / last column
+    endr = int(np.argmax(H[n, : m + 1]))
+    endc = int(np.argmax(H[: n + 1, m]))
+    if H[n, endr] >= H[endc, m]:
+        i, j = n, endr
+    else:
+        i, j = endc, m
+    score = int(H[i, j])
+    qe, re_ = i, j
+    ops = []
+    while i > 0 and j > 0:
+        s_ = S_MATCH if q[i - 1] == r[j - 1] else S_MISMATCH
+        if H[i, j] == H[i - 1, j - 1] + s_:
+            ops.append("=" if s_ == S_MATCH else "X")
+            i -= 1
+            j -= 1
+        elif H[i, j] == H[i - 1, j] + S_GAP:
+            ops.append("I")
+            i -= 1
+        else:
+            ops.append("D")
+            j -= 1
+    # compress run-length
+    ops.reverse()
+    cigar = []
+    for op in ops:
+        if cigar and cigar[-1][1] == op:
+            cigar[-1][0] += 1
+        else:
+            cigar.append([1, op])
+    return (score, "".join(f"{c}{o}" for c, o in cigar), (i, qe), (j, re_))
 
 
 def banded_align_cigar_fast(q: np.ndarray, r: np.ndarray, W: int = 128):
     """Banded semi-global DP with stored band rows for traceback,
     vectorized per row (the serial in-row gap chain resolves to a
-    decayed prefix max). Same scores/semantics as
-    ops.align_pallas.banded_align_cigar; ~100x faster on long regions.
+    decayed prefix max). Same scores/semantics as banded_align_cigar.
     Returns (score, [(count, op)...], (q0, q1), (r0, r1))."""
     n, m = len(q), len(r)
     if n == 0 or m == 0:

@@ -12,7 +12,7 @@ Exact re-derivation of the reference's cluster_util.cpp:
 
 These run on the host for oracle/testing and for the (cheap) block-level
 passes; the per-anchor DP also has a batched device implementation in
-linear_tpu.ops.chain_dp used by the TPU pipeline.
+linear_tpu.ops.chain_dp used by the device pipeline.
 
 All arithmetic mirrors C++ int semantics (truncating division).
 """

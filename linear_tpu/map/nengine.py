@@ -1,6 +1,6 @@
 """ctypes wrapper for the native per-read mapping engine (lt_engine).
 
-The native engine is the production host runtime: it consumes the TPU
+The native engine is the production host runtime: it consumes the
 device seeding results (or seeds on the host itself) and runs the exact
 per-read pipeline — chaining DP, dense window extension, gap/SV resolution,
 cords -> CIGAR/SAM — at C++ speed. It is validated bit-identical against
@@ -191,8 +191,8 @@ def build_hindex_native(seqs: List[np.ndarray], span: int, step: int,
     sizes = (C.c_int64 * 3)()
     lib.le_hindex_sizes(h, sizes)
     # zero-copy: numpy views over the build's own buffers; the handle is
-    # freed when the index is garbage-collected (at 1 Gb the old
-    # fetch-memcpy cost ~35 s of copy + fresh-page faults)
+    # freed when the index is garbage-collected (a fetch would pay a full
+    # memcpy plus fresh-page faults, large at genome scale)
     ptrs = (C.c_void_p * 3)()
     mask = np.zeros(1, dtype=np.uint64)
     lib.le_hindex_ptrs(h, ptrs, mask.ctypes.data)
@@ -357,7 +357,7 @@ class NativeEngine:
 
     def apx_hits(self, read: np.ndarray, seeds: Optional[np.ndarray] = None
                  ) -> np.ndarray:
-        """Phase B of the TPU pipeline: first-pass apx up to the PRE-filter
+        """Phase B of the device pipeline: first-pass apx up to the PRE-filter
         hits (the device runs _filterHits + path_dst_2 on them)."""
         read = np.ascontiguousarray(read, dtype=np.uint8)
         if seeds is None:

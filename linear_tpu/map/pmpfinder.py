@@ -13,7 +13,7 @@ Re-derivation of the reference's pmpfinder.cpp mapping core:
 
 This host implementation is statement-exact against the C++ (including its
 integer wrap/overflow quirks) and serves as the correctness oracle for the
-batched TPU device pipeline in linear_tpu.ops.  Hits/cords are plain-int
+batched device pipeline in linear_tpu.ops.  Hits/cords are plain-int
 lists (packed u64 cords); features are (n,3) int32 arrays with a cached
 plain-list mirror for fast scalar window distances.
 """

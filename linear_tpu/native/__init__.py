@@ -31,20 +31,26 @@ def _build(name: str) -> str | None:
     newest_dep = max(os.path.getmtime(d) for d in deps)
     if os.path.exists(so) and os.path.getmtime(so) >= newest_dep:
         return so
+    # a private output file per builder: processes that build at once
+    # (test workers, a pool's first users) must not write the same file;
+    # the rename that publishes the library is atomic
+    tmp = f"{so}.{os.getpid()}.tmp"
     try:
         # -march=native is safe here: the .so is built on demand PER
         # MACHINE (never shipped), and the host's vector ISA speeds up the
         # feature-script and window-distance lane math measurably
         cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-fopenmp",
-               "-shared", "-fPIC", src, "-lz", "-o", so + ".tmp"]
+               "-shared", "-fPIC", src, "-lz", "-o", tmp]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=240)
         except subprocess.CalledProcessError:
             cmd.remove("-march=native")  # unusual toolchains
             subprocess.run(cmd, check=True, capture_output=True, timeout=240)
-        os.replace(so + ".tmp", so)
+        os.replace(tmp, so)
         return so
     except Exception:
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return None
 
 

@@ -28,9 +28,9 @@ namespace le {
 struct HIndexBuild {
     std::vector<u64> ysa;
     // calloc'd: for multi-GB tables calloc maps FRESH ZERO pages without
-    // touching them (an explicit zero pass measured 18.5 s at 1 Gb on
-    // this host — page-fault bound); only slots the fill writes ever
-    // fault in, empty slots read from the shared zero page
+    // touching them (an explicit zero pass is page-fault bound); only
+    // slots the fill writes ever fault in, empty slots read from the
+    // shared zero page
     u64* v1 = nullptr;
     i64* v2 = nullptr;
     i64 nv = 0;
@@ -354,14 +354,13 @@ static inline void hb_finalize(std::vector<u64>& hs, int weight,
     while ((double)size < count * alpha) size <<= 1;
     b.mask = size - 1;
     // parallel first-touch zeroing: vector::assign's serial memset pays a
-    // single-core page-fault storm for the multi-GB table (43 s measured
-    // at 1 Gb on this host); resize + omp-static zero spreads the faults
+    // single-core page-fault storm for the multi-GB table; resize +
+    // omp-static zero spreads the faults
     b.v1 = (u64*)std::calloc(size, sizeof(u64));
     b.v2 = (i64*)std::calloc(size, sizeof(i64));
     b.nv = (i64)size;
     // parallel pre-fault: calloc's pages are zero but unmapped; the serial
     // fill would otherwise eat the fault storm one page at a time
-    // (measured 6.2 GB/s populate vs 1.9 GB/s serial touch on this host)
 #pragma omp parallel for schedule(static)
     for (int h = 0; h < 16; h++) {
         i64 chunk = (i64)(size * sizeof(u64) + 15) / 16;

@@ -1,6 +1,6 @@
 // lt_engine: the native per-read mapping runtime.
 //
-// The TPU device kernels (linear_tpu/ops) cover the batched hot stages
+// The device kernels (linear_tpu/ops) cover the batched hot stages
 // (seeding, chain DP); this engine is the host runtime that consumes those
 // results and runs the irregular per-read control flow at C++ speed:
 // anchors -> chaining -> dense extension -> gap/SV resolution -> CIGAR/SAM.
@@ -244,8 +244,8 @@ int le_map_read(void* ep, const u8* read, i64 read_len, const char* rid,
 }
 
 // Map a whole chunk with ONE crossing of the ctypes boundary (the per-read
-// Python call + marshalling overhead is ~10-30 us/read on small hosts —
-// comparable to whole pipeline stages). SAM for all reads lands
+// Python call + marshalling overhead is comparable to whole pipeline
+// stages). SAM for all reads lands
 // concatenated in one buffer, bit-identical to per-read calls in order.
 int le_map_block(void* ep, const u8** reads, const i64* lens,
                  const char** rids, const u64** seeds, const i64* n_seeds,
@@ -265,7 +265,7 @@ int le_map_block(void* ep, const u8** reads, const i64* lens,
 }
 
 // ---------------------------------------------- device-pipeline phase split
-// Phase B of the TPU pipeline: first-pass apx up to PRE-filter hits
+// Phase B of the device pipeline: first-pass apx up to PRE-filter hits
 // (apxMap_ src/pmpfinder.cpp:2632 before path_dst). The device then runs
 // _filterHits + path_dst_2 (linear_tpu/ops/extend_dev.py) and le_apx_finish
 // consumes its cords. Buffers valid until the next call on this engine.
@@ -483,10 +483,9 @@ void* le_build_index(const u8** genome_ptrs, const i64* genome_lens,
         p.shrink_to_fit();
     }
     lap("concat");
-    // NOTE on the 268 MB table: do NOT madvise(MADV_HUGEPAGE) here — this
-    // host runs THP defrag=madvise, where hugepage-marked VMAs pay
-    // SYNCHRONOUS compaction on fault (~0.9 s measured for the full table
-    // vs ~0.13 s of plain 4 KB first-touch). Parallel first-touch prefault:
+    // NOTE on the 268 MB table: do NOT madvise(MADV_HUGEPAGE) here — under
+    // THP defrag=madvise, hugepage-marked VMAs pay SYNCHRONOUS compaction
+    // on fault, several times the cost of plain 4 KB first-touch. Parallel first-touch prefault:
     // the kernel's fault-time zeroing spreads over all cores and the later
     // streaming prefix pass hits already-mapped pages.
 #pragma omp parallel for schedule(static)
@@ -653,8 +652,8 @@ void le_hindex_fetch(void* bp, u64* ysa_out, u64* v1_out, i64* v2_out,
 }
 
 // zero-copy variant: the caller wraps these pointers in numpy views and
-// keeps the build handle alive for the index's lifetime (at 1 Gb the
-// fetch memcpy + fresh-page faults cost ~35 s on this host)
+// keeps the build handle alive for the index's lifetime (a fetch would
+// pay a full memcpy plus fresh-page faults, large at genome scale)
 void le_hindex_ptrs(void* bp, void** out3, u64* mask_out) {
     HIndexBuild* b = (HIndexBuild*)bp;
     out3[0] = (void*)b->ysa.data();
@@ -667,8 +666,8 @@ void le_hindex_build_free(void* bp) { delete (HIndexBuild*)bp; }
 
 // Wire pack for the device seed path (ops/seeding.pack_superchunk):
 // 2-bit LSB-first bases (4/byte) + 8 little-endian length bytes per row;
-// N-containing reads ride zeroed with n_mask set (the numpy per-read
-// loop costs ~34 us/read of dispatch overhead in the feeder thread).
+// N-containing reads ride zeroed with n_mask set (the numpy version loops
+// over reads in Python, in the feeder thread).
 void le_pack_superchunk(const u8** reads, const i64* lens, i64 n_reads,
                         i64 rows, i64 pad, u8* wire, u8* n_mask) {
     i64 rowbytes = pad / 4 + 8;

@@ -1,9 +1,9 @@
-"""Device (TPU) sparse chaining DP — batched getBestChains.
+"""Device sparse chaining DP — batched getBestChains.
 
-TPU-first design:
+Design:
   - The pairwise score function (getApxChainScore, cluster_util.cpp:387) has
     no DP dependence, so the full (N, N) score matrix is computed in parallel
-    on the VPU first.
+    first.
   - The DP recurrence (getBestChains, cluster_util.cpp:53) is a fori_loop
     over anchor index; each step is one masked max over a row — vmapped over
     the read batch, so every step advances B reads at once.
@@ -27,7 +27,7 @@ import numpy as np
 from ..utils.jaxcfg import configure as _jaxcfg
 _jaxcfg()
 
-NEG = jnp.int32(-(2 ** 31) + 1)
+NEG = -(2 ** 31) + 1
 
 MASK_Y = (1 << 20) - 1
 MASK_X30 = (1 << 30) - 1
@@ -110,7 +110,7 @@ def batch_chain_dp(anchors: jnp.ndarray, n_anchors: jnp.ndarray,
         score, p2, length = carry
         row = cand[:, :, i]                       # (B, N): s(j, i)
         ok = elig[:, :, i] & (jj[None, :] < n_anchors[:, None])
-        tot = jnp.where(ok & (row > 0), row + score.astype(jnp.int64), NEG.astype(jnp.int64))
+        tot = jnp.where(ok & (row > 0), row + score.astype(jnp.int64), jnp.int64(NEG))
         new_max = jnp.max(tot, axis=1)
         max_j = jnp.argmax(tot, axis=1).astype(jnp.int32)
         found = new_max > 0
@@ -141,7 +141,7 @@ def batch_chain_dp_windowed(anchors: jnp.ndarray, n_anchors: jnp.ndarray, W: int
     """Windowed-scan formulation of batch_chain_dp: instead of a fori_loop
     with full-array scatters, precompute the (W, B, N) banded edge scores in
     parallel and scan with a (B, W) ring carry of the last W DP scores —
-    every step is a small VPU op, ~20x faster on TPU.
+    every step is a small (B, W) elementwise op.
 
     Only lookbacks within W are considered; `overflow` flags reads where the
     C++ dx-depth condition could reach beyond W (the caller must fall back

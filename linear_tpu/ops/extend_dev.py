@@ -1,4 +1,4 @@
-"""Device (TPU) dense-window extension: _filterHits + path_dst_2 batched.
+"""Device dense-window extension: _filterHits + path_dst_2 batched.
 
 This is the FLOP-dense half of the apx engine (reference
 src/pmpfinder.cpp:1309-1445 path_dst_2/_filterHits and :883-1178
@@ -6,15 +6,15 @@ previousWindow/nextWindow/extendWindow): for every accepted hit the engine
 sweeps 96-base feature windows left and right, each step evaluating
 SUP-INF=3 candidate window distances (2 int96 scripts x 5 six-bit lanes)
 and taking the first argmin.  On the host this is the biggest per-read
-cost after seeding; on the TPU the whole batch advances one sweep per
+cost after seeding; on the device the whole batch advances one sweep per
 step.
 
-TPU-first design:
+Design:
   - Read features (2-mer/48-base int96 scripts, fwd + revcomp) are computed
     ON DEVICE from the packed read batch (segment sums of one-hot 2-mers —
-    pure VPU work), so the extension phase reuses the seed phase's h2d
+    elementwise work), so the extension phase reuses the seed phase's h2d
     payload and ships only hits in / cords out.
-  - Genome features are uploaded once (HBM resident, all genomes
+  - Genome features are uploaded once (device resident, all genomes
     concatenated row-major with per-genome offsets).
   - path_dst_2's data-dependent control flow runs as a batched interpreter:
     one `lax.while_loop` whose body advances every read by one step

@@ -10,7 +10,7 @@ Re-derivation of the reference's LShape rolling hash (src/shape_extend.cpp):
                k-mer (first minimum wins)
   - YValue   = the 4 bases adjacent to the chosen weight-mer, 2-bit packed
 
-The C++ computes these with sequential per-base recurrences; on TPU all
+The C++ computes these with sequential per-base recurrences; on the device all
 window positions are computed directly (closed forms). Two quirks of the
 sequential code are reproduced exactly because output identity depends on
 them:

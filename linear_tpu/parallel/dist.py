@@ -7,7 +7,7 @@ entry points must `from linear_tpu.parallel.dist import init_distributed`
 and call it BEFORE importing linear_tpu.parallel.mesh / linear_tpu.ops.
 
 Reference analog: none — the reference is single-node OpenMP (SURVEY
-§2.3); this is the TPU-native replacement for its missing scale-out story.
+§2.3); this wires the multi-process runs of tools/*multiproc.py.
 """
 from __future__ import annotations
 
@@ -17,8 +17,7 @@ import os
 def init_distributed() -> int:
     """Initialize jax.distributed from the standard env
     (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID) so a
-    multi-host run sees one global mesh (dp over all chips; DCN between
-    hosts, ICI within). No-op single-process when the env is absent.
+    multi-process run sees one global mesh (dp over all devices). No-op single-process when the env is absent.
     Returns the process index (0 when not distributed)."""
     addr = os.environ.get("JAX_COORDINATOR_ADDRESS")
     if not addr:

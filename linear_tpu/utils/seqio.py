@@ -234,7 +234,7 @@ def parse_records_range(path: str, b0: int, b1: int, fh=None):
     Dispatches to the native range reader when available — pipeline
     workers parse their own chunk, and the Python fallback parser is
     several times slower than the C++ one the feeder used before the
-    byte-range task change (a measured ~10%% pipeline regression)."""
+    byte-range task change."""
     try:
         from ..native import seqio_lib
 

@@ -11,8 +11,9 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from linear_tpu.map.align import align_cords, banded_align_cigar_fast
-from linear_tpu.ops.align_pallas import banded_align_cigar
+from linear_tpu.map import align as AL
+from linear_tpu.map.align import (align_cords, banded_align_cigar,
+                                  banded_align_cigar_fast)
 from linear_tpu.utils import seqio
 
 from cigar_audit import audit_sam_line
@@ -36,6 +37,53 @@ def test_fast_traceback_matches_oracle(seed, n, m):
     c2_ops = [(int(a), b) for a, b in re.findall(r"(\d+)([=XID])", c2)]
     assert c1 == c2_ops
     assert (qs1, rs1) == (qs2, rs2)
+
+
+def _mutate(seq, rng, err=0.1):
+    out = []
+    for c in seq:
+        x = rng.random()
+        if x < err * 0.4:
+            out.append(int(rng.integers(0, 4)))
+        elif x < err * 0.7:
+            out.append(int(rng.integers(0, 4)))
+            out.append(int(c))
+        elif x < err:
+            continue
+        else:
+            out.append(int(c))
+    return np.array(out, dtype=np.uint8)
+
+
+def test_cigar_traceback_consistent():
+    """Reference traceback: score equals the cell-by-cell oracle; the CIGAR
+    replays to exactly that score over the reported spans."""
+    import re as _re
+
+    rng = np.random.default_rng(23)
+    for trial in range(6):
+        base = rng.integers(0, 4, int(rng.integers(60, 300))).astype(np.uint8)
+        q = _mutate(base, rng)
+        r = base
+        score, cig, (q0, q1), (r0, r1) = banded_align_cigar(q, r, W=64)
+        assert score == AL.banded_align_oracle(q, r, W=64)
+        i, j, s = q0, r0, 0
+        for cnt, op in _re.findall(r"(\d+)([=XID])", cig):
+            cnt = int(cnt)
+            if op in "=X":
+                for _ in range(cnt):
+                    s += AL.S_MATCH if q[i] == r[j] else AL.S_MISMATCH
+                    assert (q[i] == r[j]) == (op == "="), (i, j, op)
+                    i += 1
+                    j += 1
+            elif op == "I":
+                s += AL.S_GAP * cnt
+                i += cnt
+            else:
+                s += AL.S_GAP * cnt
+                j += cnt
+        assert (i, j) == (q1, r1)
+        assert s == score, (s, score)
 
 
 def _simulate(rng, genome, n_reads):

@@ -105,7 +105,7 @@ def test_mapper_seed_block_paths(small_world, tmp_path):
     from linear_tpu.map.mapper import Mapper, MapperConfig
 
     seqio.write_fasta(str(tmp_path / "g.fa"), ["chrH x"], [genome])
-    m = Mapper([str(tmp_path / "g.fa")], MapperConfig(threads=4), device="tpu")
+    m = Mapper([str(tmp_path / "g.fa")], MapperConfig(threads=4), device="accel")
     m.index = idx
     for with_n in (False, True):
         reads = seqio.SeqSet()
@@ -203,7 +203,7 @@ def test_hybrid_mapper_equals_host(small_world, tmp_path):
         reads.ids.append(f"r{i} t")
         reads.seqs.append(r)
     mh = Mapper([str(tmp_path / "g.fa")], MapperConfig(gap_len=50, threads=4), device="host")
-    mt = Mapper([str(tmp_path / "g.fa")], MapperConfig(gap_len=50, threads=4), device="tpu")
+    mt = Mapper([str(tmp_path / "g.fa")], MapperConfig(gap_len=50, threads=4), device="accel")
     mh.prepare()
     mt.index = mh.index
     mt.f2 = mh.f2

@@ -1,5 +1,6 @@
 """Profile the host residual (post device seed+chain): lockstep extension,
-gap phase, output synthesis. Usage: python tools/profile_residual.py [n]"""
+gap phase, output synthesis.
+Usage: python tools/profile_residual.py [n] [host|accel]"""
 import cProfile
 import io
 import pstats
@@ -28,7 +29,7 @@ block = next(seqio.read_blocks(r_fa))
 reads = block.seqs[:N]
 rids = block.ids[:N]
 
-if DEV == "tpu":
+if DEV == "accel":
     sub = seqio.SeqSet(ids=rids, seqs=reads)
     t0 = time.time()
     seeds = mapper._device_seed_block(sub)
